@@ -24,7 +24,12 @@ class Dispatcher(Protocol):
 
 class LocalDispatcher:
     """Runs each job by calling a user function in-process (or a subprocess
-    command when ``command`` is given)."""
+    command when ``command`` is given).
+
+    A subprocess job has the card to itself: jobs run one at a time, and the
+    parent process stays off the device — it must not use JAX on the GPU,
+    because a JAX process reserves 75% of the card's memory when it first
+    touches it and the child would then fail for want of memory."""
 
     def __init__(self, run_fn: Optional[Callable[[dict], float]] = None,
                  command: Optional[list[str]] = None):

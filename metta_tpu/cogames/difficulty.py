@@ -1,6 +1,6 @@
 """Difficulty variants for CoGames missions.
 
-Ported config/content table (VERDICT r2 adjudication (b)): the knob names,
+Ported config/content table: the knob names,
 numeric values, and clipping gear mapping ARE the compatibility contract.
 Parity: reference ``cogames/cogs_vs_clips/evals/difficulty_variants.py``.
 

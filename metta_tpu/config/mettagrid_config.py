@@ -5,7 +5,7 @@ surface (class/field names, defaults, semantics) matches the reference so
 recipes translate directly; the implementation is original.
 
 The config is compiled into dense device arrays by
-``metta_tpu.engine.compiler`` — the TPU-native replacement for the reference's
+``metta_tpu.engine.compiler`` — the array-native replacement for the reference's
 ``convert_to_cpp_game_config`` (``config/mettagrid_c_config.py``).
 """
 

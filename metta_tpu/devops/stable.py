@@ -4,7 +4,7 @@ Parity: reference ``devops/stable/runner.py:34-132`` + the ``@stable_job``
 acceptance criteria in ``recipes/prod/arena_basic_easy_shaped.py:308-334``.
 A stable job is a named training run with acceptance criteria evaluated from
 the run's ``metrics.jsonl`` (written by ``TrainTool``); the registry's
-thresholds are the reference's own bars, so passing them means the TPU build
+thresholds are the reference's own bars, so passing them means this build
 clears the reference's CI gates.
 """
 
@@ -45,7 +45,7 @@ class AcceptanceCriterion:
 
 @dataclass(frozen=True)
 class StableJob:
-    """A registered acceptance run (runner.py:41-58, local/TPU form)."""
+    """A registered acceptance run (runner.py:41-58, local form)."""
 
     name: str
     make_tool: Callable[[], object]       # () -> TrainTool
@@ -122,7 +122,7 @@ STABLE_JOBS: Dict[str, StableJob] = {
         make_tool=_train_100m,
         timeout_s=7200,
         acceptance=(
-            # reference 1-GPU bar: sps >= 23000 (:311); ours runs one TPU chip
+            # reference 1-GPU bar: sps >= 23000 (:311); ours runs one GPU
             AcceptanceCriterion(metric="overview/sps", threshold=23000),
             AcceptanceCriterion(metric="env_agent/heart.gained",
                                 operator=">", threshold=0.1),

@@ -1,6 +1,6 @@
 """Activation-handler framework + AOE system (array-native).
 
-TPU re-design of the reference's config-driven interaction engine:
+Array re-design of the reference's config-driven interaction engine:
 
 - ``ActivationHandler`` = filter chain + mutation chain applied to an
   (actor, target) pair (``cpp/include/mettagrid/actions/activation_handler.hpp``,

@@ -1,6 +1,6 @@
 """Config → dense-array compiler.
 
-The TPU-native replacement for the reference's Python→C++ conversion
+The array-native replacement for the reference's Python→C++ conversion
 (``mettagrid/config/mettagrid_c_config.py:30-577``): instead of constructing a
 C++ object graph, the pydantic :class:`GameConfig` plus a built
 :class:`GameMap` are compiled into

@@ -1,6 +1,6 @@
 """Vectorized MettaGrid environment.
 
-The TPU-native replacement for ``MettaGridPufferEnv`` + pufferlib's process
+The on-device replacement for ``MettaGridPufferEnv`` + pufferlib's process
 vectorization (``envs/mettagrid_puffer_env.py:60-283``, ``pufferlib/vector.py``):
 instead of worker processes and shared-memory buffers, the batch dimension is a
 ``vmap`` axis and the whole step (actions → simulation → observations) is one
@@ -19,13 +19,33 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from metta_tpu.config.mettagrid_config import MettaGridConfig
 from metta_tpu.engine.compiler import compile_game
 from metta_tpu.engine.state import EnvState
-from metta_tpu.engine.step import initial_observations, make_initial_state, step_env
+from metta_tpu.engine.step import step_env
 from metta_tpu.engine.tables import Tables
+from metta_tpu.utils import struct
+
+
+def select_step(tables: Tables, step_mode: str):
+    """The engine's one choice of step path, the same on every backend.
+
+    ``"batched"`` is the rank-arbitrated vectorized step
+    (``engine/step_batched.py``) with the observation render inside the
+    per-env ``vmap``. It falls back to the sequential reference step
+    (``engine/step.py``) for what only that step implements: coupled
+    inventory limit groups and chest search (assembler.hpp:96-121).
+    Returns ``(mode, step_fn)``; both env classes call this.
+    """
+    if step_mode not in ("batched", "sequential"):
+        raise ValueError(f"unknown step_mode {step_mode!r}")
+    if (step_mode == "batched" and tables.inv_vector_ok
+            and tables.chest_search_distance <= 0):
+        from metta_tpu.engine.step_batched import step_env_batched
+
+        return "batched", step_env_batched
+    return "sequential", step_env
 
 
 @struct.dataclass
@@ -55,27 +75,17 @@ class MettaGridEnv:
         desync_episodes: Optional[bool] = None,
         track_stats: bool = True,
         step_mode: str = "sequential",
-        obs_eps: int = 8,
     ):
         """step_mode: "sequential" (reference-exact shuffled-order agent loop)
-        or "batched" (rank-arbitrated vectorized step — the performance path,
-        see engine/step_batched.py; falls back to sequential when the config
-        uses coupled inventory limit groups)."""
+        or "batched" (rank-arbitrated vectorized step — the performance path);
+        :func:`select_step` makes the choice."""
         self.cfg = cfg
         self.num_envs = num_envs
-        self.obs_eps = obs_eps  # envs per pallas-obs grid step (perf knob)
         game_map = cfg.game.map_builder.create().build()
         self.game_map = game_map
         self.compiled, self._init = compile_game(cfg.game, game_map)
         self.tables = Tables(self.compiled, track_stats=track_stats)
-        if step_mode == "batched" and (
-            not self.tables.inv_vector_ok
-            # batched assemblers don't implement chest search; fall back so
-            # configs using it (assembler.hpp:96-121 semantics) stay correct
-            or self.compiled.chest_search_distance > 0
-        ):
-            step_mode = "sequential"
-        self.step_mode = step_mode
+        self.step_mode, _step_env = select_step(self.tables, step_mode)
         self.desync = cfg.desync_episodes if desync_episodes is None else desync_episodes
         self._seed = seed
         self.single_observation_space_shape = (self.compiled.num_obs_tokens, 3)
@@ -90,67 +100,10 @@ class MettaGridEnv:
         # Concrete template (device arrays): reset/step jits embed it as data,
         # keeping their compile time independent of batch size / map size.
         self._template = make_reset_template(tables, init)
-        from metta_tpu.engine.tables import attach_static_block_grid
-
-        attach_static_block_grid(tables, self._template[0])
-
-        if self.step_mode == "batched":
-            from metta_tpu.engine.step_batched import step_env_batched as _step_env
-        else:
-            _step_env = step_env
-
-        # On TPU, the batched step defers the obs render out of the per-env
-        # vmap into one whole-batch Pallas kernel — the v3 gather kernel
-        # (ops/obs_render3.py, ~3.6x over v2) when the config fits its lane
-        # constraints, else the v2 one-hot kernel. Both byte-identical to the
-        # in-vmap "mm" renderer, which CPU/interpret keeps.
-        backend = jax.default_backend()
-        self._pl2 = (
-            self.step_mode == "batched"
-            and backend not in ("cpu",)
-        )
-        from metta_tpu.ops.obs_render3 import supports_v3
-        from metta_tpu.ops.sim_fused import supports_fused
-
-        self._pl3 = self._pl2 and supports_v3(tables, num_envs)
-        # Fused Pallas sim step (ops/sim_fused.py): the whole interaction
-        # span in one env-in-lanes kernel, byte-identical to the XLA batched
-        # step (tests/test_sim_fused.py). Requires 128-env blocks.
-        self._fused = (
-            self._pl2
-            and supports_fused(tables)
-            and (num_envs % 128 == 0 or num_envs < 128)
-        )
 
         def _stepped(vstate_env, actions):
-            """vmapped sim step + batched obs render → (env, obs)."""
-            if self._pl2:
-                from metta_tpu.ops.obs_render2 import render_obs_pallas2
-                from metta_tpu.ops.obs_render3 import render_obs_pallas3
-                from metta_tpu.ops.sim_fused import fused_step_full
-
-                if self._fused:
-                    env, rew_at_obs = fused_step_full(
-                        vstate_env, actions, tables
-                    )
-                else:
-                    env, rew_at_obs = jax.vmap(
-                        lambda s, a: _step_env(s, a, tables, render="defer")
-                    )(vstate_env, actions)
-                if self._pl3:
-                    obs = render_obs_pallas3(
-                        env, tables, env.executed_action, rew_at_obs,
-                        eps=self.obs_eps,
-                    )
-                else:
-                    obs = render_obs_pallas2(
-                        env, tables, env.executed_action, rew_at_obs, eps=1
-                    )
-            else:
-                env, obs = jax.vmap(lambda s, a: _step_env(s, a, tables))(
-                    vstate_env, actions
-                )
-            return env, obs
+            """vmapped sim step with the in-vmap obs render → (env, obs)."""
+            return jax.vmap(lambda s, a: _step_env(s, a, tables))(vstate_env, actions)
 
         template = self._template
 

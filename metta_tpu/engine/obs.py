@@ -8,7 +8,7 @@ increasing-Manhattan-distance (center-out) order until the buffer fills.
 Empty slots are 0xff. Packed location = ``row<<4 | col`` in window coords
 (``systems/packed_coordinate.hpp:27-72``).
 
-Design (TPU-native): instead of walking objects per agent per cell, we build
+Design: instead of walking objects per agent per cell, we build
 per-object token *blocks* once per step (vmap over agents / assemblers /
 chests / wall types), concatenate them into one table, and each agent's render
 is a single gather over its 121 window cells followed by a prefix-sum
@@ -118,7 +118,7 @@ def build_wall_blocks(tables):
 
 
 def _type_lut(tables, t):
-    """One-hot object-type lookups (scalar t; per-lane gathers serialize on TPU)."""
+    """One-hot object-type lookups (scalar t)."""
     NT = tables.n_object_types
     toh = t == jnp.arange(NT)
     tags = jnp.sum(jnp.where(toh[:, None], tables.type_tags, 0), axis=0)
@@ -304,17 +304,14 @@ def _compact_blocks(blocks, oks):
 def render_observations(state, tables, executed_actions, rewards_at_obs):
     """Render all agents' token observations → [A, T, 3] uint8.
 
-    Dispatches on ``tables.obs_renderer``: ``"mm"`` (default) is the one-hot
-    MXU formulation (:mod:`metta_tpu.engine.obs_mm`, zero gathers — the TPU
-    performance path); ``"ref"`` is the gather/searchsorted formulation below
-    (kept as the readable reference; both are byte-identical, pinned by
-    ``tests/test_obs_mm.py``).
+    Dispatches on ``tables.obs_renderer``: ``"ref"`` (default) is the
+    gather/searchsorted formulation below; ``"mm"`` is the one-hot matmul
+    formulation (:mod:`metta_tpu.engine.obs_mm`, no gathers). Both are
+    byte-identical (``tests/test_obs_mm.py``). On an H100 the gather renderer
+    is the one that fits: at combat E=4096 its step program needs 0.41 GB of
+    temporaries where obs_mm's needs 135 GB.
     """
-    renderer = getattr(tables, "obs_renderer", "mm")
-    if renderer == "pl":
-        from metta_tpu.ops.obs_render import render_obs_pallas
-
-        return render_obs_pallas(state, tables, executed_actions, rewards_at_obs)
+    renderer = getattr(tables, "obs_renderer", "ref")
     if renderer == "mm":
         from metta_tpu.engine.obs_mm import render_observations_mm
 

@@ -1,14 +1,18 @@
-"""Token observation renderer, MXU formulation (the performance path).
+"""Token observation renderer, one-hot matmul formulation.
 
-Produces byte-identical output to :func:`metta_tpu.engine.obs.render_observations`
+Produces byte-identical output to :func:`metta_tpu.engine.obs.render_observations_ref`
 (the reference formulation; parity: ``bindings/mettagrid_c.cpp:397-563``,
 ``systems/observation_encoder.hpp``) but contains **zero data-dependent
-gathers or scatters** — on TPU, XLA lowers generic gathers to ~30 ns/element
-scalar loops, which made the gather renderer ~95% of the whole env step.
+gathers or scatters**: every lookup is a one-hot contraction. It trades
+memory for that: its one-hot operands grow with agents × window × map
+height per env, so at the combat map's E=4096 its step needs about 135 GB of
+temporaries on an H100 where the gather renderer needs 0.41 GB. It is
+selected with ``tables.obs_renderer = "mm"``; the default is the gather
+renderer.
 
-Formulation (all matmuls are one-hot contractions on the MXU; the agent axis
-is folded into the GEMM M dimension so each env issues a few large matmuls
-instead of per-agent slivers):
+Formulation (all matmuls are one-hot contractions; the agent axis is folded
+into the GEMM M dimension so each env issues a few large matmuls instead of
+per-agent slivers):
 
 1. *Window read*: a ``[A*S, Hp]`` one-hot row matmul over the zero-padded
    grid planes + a masked column reduce turn every agent's egocentric window
@@ -20,15 +24,12 @@ instead of per-agent slivers):
    ``start[s] = g_count + cum_excl[s]``. One batched GEMM scatters every
    (cell, k) token straight to its slot:
    ``out[a, t, p] = Σ_{s,k} plane_p[a, s, k] · [start[a, s] + k == t]``.
-   (An earlier two-stage form — slot one-hot GEMM then an anti-diagonal
-   shifted-slice reduction — was silently miscompiled on real TPU; see the
-   inline note at the scatter.)
 
 Exactness: every matmul is a 0/1 one-hot against integer-valued planes
 ``< 256`` (bf16-exact) accumulated in f32 (exact for ints < 2^24), so the
-arithmetic is bit-exact integer arithmetic on the MXU. When a grid plane's
-values can reach 256 (huge maps: ``NB >= 256`` block slots or ``A >= 255``
-agents), the window matmul switches to f32 @ HIGHEST precision.
+arithmetic is bit-exact integer arithmetic. When a grid plane's values can
+reach 256 (huge maps: ``NB >= 256`` block slots or ``A >= 255`` agents), the
+window matmul switches to f32 @ HIGHEST precision.
 """
 
 from __future__ import annotations
@@ -233,21 +234,13 @@ def render_observations_mm(state, tables, executed_actions, rewards_at_obs,
     start = g_count[:, None] + cum - counts_w
     total = g_count + cum[:, -1]
     _dbg = dict(start=start, total=total) if _debug else None
-    # f32 + HIGHEST here is a hardware-correctness requirement, not a
-    # precision nicety: with bf16 operands this batched dot, when XLA fuses
-    # it into the anti-diagonal consumer below, recomputes per-slice with a
-    # non-lane-aligned S contraction and produced corrupted rows on real TPU
-    # (extra shifted contributions; CPU and the unfused TPU program agree).
-    # One GEMM scatters every (cell, k) token straight to its output slot:
+    # f32 + HIGHEST keeps this dot exact whatever the backend's default
+    # precision. One GEMM scatters every (cell, k) token straight to its
+    # output slot:
     # out[a, t, p] = Σ_{s,k} plane_p[a, s, k] · [start[a, s] + k == t].
-    # The earlier two-stage form (slot one-hot GEMM, then an anti-diagonal
-    # pad/shifted-slice/accumulate over k) was SILENTLY MISCOMPILED on real
-    # TPU: the dot output was correct, but the same program's shifted-slice
-    # reduction of it returned rows with extra contributions (CPU, and
-    # host-side numpy on the returned dot output, agree; tried lane- and
-    # sublane-major layouts and optimization barriers — all wrong on
-    # hardware). Folding the k-shift into the one-hot removes that op class
-    # from the program entirely.
+    # Folding the k-shift into the one-hot leaves no anti-diagonal
+    # pad/shifted-slice reduction in the program, a pattern an accelerator
+    # compiler once miscompiled while CPU results stayed correct.
     oh2 = (
         (start[:, :, None, None] + kiota[None, None, :, None])
         == jnp.arange(T)[None, None, None, :]

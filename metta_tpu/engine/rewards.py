@@ -37,8 +37,7 @@ def compute_stat_rewards(state, tables):
     """Add stat-reward deltas to the per-step reward; returns new state.
 
     The (source, resource) stat-slot lookups are static tables, expanded to
-    one-hot masks so the whole computation is a masked reduction (per-lane
-    gathers serialize on TPU).
+    one-hot masks so the whole computation is a masked reduction.
     """
     A = tables.num_agents
     R = tables.num_resources
@@ -136,7 +135,7 @@ def apply_regen(state, tables):
     voh = vibes[:, None] == jnp.arange(tables.num_vibes)[None, :]       # [A, V]
     amounts = jnp.sum(
         jnp.where(voh[:, :, None], tables.agent_regen, 0), axis=1
-    )  # [A, R] — one-hot LUT (per-lane gathers serialize on TPU)
+    )  # [A, R] — one-hot LUT
     do = tick & tables.agent_has_regen
 
     if tables.inv_vector_ok:

@@ -18,7 +18,8 @@ whole step is a single fused XLA program.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+
+from metta_tpu.utils import struct
 
 # Cell kinds in static_kind / occupancy queries.
 KIND_EMPTY = 0

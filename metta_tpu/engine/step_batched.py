@@ -83,7 +83,7 @@ def step_env_batched_sim(state, actions, tables):
 
 
 def _ohdot(oh, x):
-    """Exact integer one-hot contraction ``oh @ x`` on the MXU.
+    """Exact integer one-hot contraction ``oh @ x`` as one matmul.
 
     f32 accumulation is exact for the magnitudes here (< 2^24); under vmap
     this stays one batched GEMM, while the equivalent where+sum materializes
@@ -101,9 +101,8 @@ def _ohdot(oh, x):
 def _lut(table, idx, n):
     """Gather-free lookup ``table[idx]`` via one-hot matmul (idx [A], n rows).
 
-    TPU lowers per-lane gathers to serialized scalar loops; for the small
-    decode/config tables here (actions, vibes, types) a one-hot GEMM is
-    branch-free vector code instead.
+    For the small decode/config tables here (actions, vibes, types) a
+    one-hot GEMM is branch-free vector code.
     """
     oh = idx[:, None] == jnp.arange(n)[None, :]
     if table.ndim == 1:
@@ -205,9 +204,9 @@ def step_env_batched(state, actions, tables, render=True, perm=None):
     lims = _row_limits_all(tables)                      # [A, R]
 
     # a → target one-hot [A(actor), A(target)]; the basis for every per-target
-    # reduction below. (Scatters/gathers lower to serialized loops on TPU, so
-    # all target-indexed ops are expressed as masked [A, A] reductions or
-    # one-hot sums instead — see `_sum_to_targets`.)
+    # reduction below. (All target-indexed ops are expressed as masked
+    # [A, A] reductions or one-hot sums instead of scatters/gathers — see
+    # `_sum_to_targets`.)
     tgt_oh = (tgt_agent[:, None] == jnp.arange(A)[None, :]) & has_tgt_agent[:, None]
 
     def from_targets(x):
@@ -379,8 +378,8 @@ def step_env_batched(state, actions, tables, render=True, perm=None):
     cell = rs * W + cs
     same_cell = cell[:, None] == cell[None, :]          # [A, A] target contention
     for _round in range(4):
-        # occupancy from current positions (masked [A, A] reductions — the
-        # per-cell scatter-min this replaces serializes on TPU)
+        # occupancy from current positions (masked [A, A] reductions in
+        # place of a per-cell scatter-min)
         occ = (r1[:, None] == state.agent_r[None, :]) & (c1[:, None] == state.agent_c[None, :])
         occ = occ & (jnp.arange(A)[:, None] != jnp.arange(A)[None, :])
         occ_any = jnp.any(occ, axis=1)
@@ -467,13 +466,9 @@ def step_env_batched(state, actions, tables, render=True, perm=None):
     ).astype(state.agent_grid.dtype)
     state = state.replace(agent_grid=grid)
 
-    if render == "defer":
-        # caller renders observations itself (batched Pallas kernel on the
-        # whole env batch); hand back the reward snapshot at obs time —
+    if render:
         # observations see action-phase rewards but not stat rewards
         # (mettagrid_c.cpp:653 obs before :656 stat rewards)
-        obs = state.reward
-    elif render:
         obs = render_observations(state, tables, state.executed_action, state.reward)
     else:
         obs = jnp.zeros((1, 1, 3), jnp.uint8)
@@ -550,8 +545,7 @@ def _scatter_rows(idx, valid, deltas, A, R):
     """Σ over rows i with valid[i] of deltas[i] into agent slot idx[i].
 
     idx [L] or [NA, 8], deltas [..., R] → [A, R]; one-hot matmul (f32 HIGHEST
-    is exact for the integer magnitudes here), replacing a serialized TPU
-    scatter-add.
+    is exact for the integer magnitudes here) in place of a scatter-add.
     """
     idx_f = idx.reshape(-1)
     val_f = valid.reshape(-1)

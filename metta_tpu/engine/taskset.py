@@ -4,7 +4,7 @@ Reference parity: ``CurriculumEnv`` (``cogworks/curriculum/curriculum_env.py``)
 wraps each env instance and swaps its task (a full env config) at every
 episode boundary, sampling from the curriculum's learning-progress weights.
 
-The TPU-native equivalent: a task *set* is K compiled configs whose
+The on-device equivalent: a task *set* is K compiled configs whose
 :class:`Tables` are stacked along a leading axis (Tables is a registered
 pytree whose statics — shapes, subsystem gates — must agree across the set,
 which is exactly the "one compiled program" condition). Each env in the
@@ -26,13 +26,14 @@ from typing import Any, List, Optional, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from metta_tpu.config.mettagrid_config import MettaGridConfig
 from metta_tpu.engine.compiler import compile_game
+from metta_tpu.engine.env import select_step
 from metta_tpu.engine.state import EnvState
-from metta_tpu.engine.step import make_reset_template, step_env
+from metta_tpu.engine.step import make_reset_template
 from metta_tpu.engine.tables import Tables
+from metta_tpu.utils import struct
 
 
 @struct.dataclass
@@ -70,8 +71,8 @@ def build_task_set(
     tables_list, templates, obs1s, clip0 = [], [], [], []
     # Templates are built on the host CPU backend and device_put afterwards:
     # building them on the accelerator would compile two fresh programs per
-    # task (and per curriculum slot eviction), which on a remote-compile TPU
-    # costs ~30 s each — task-pool mutations must stay data-only.
+    # task (and per curriculum slot eviction) — task-pool mutations must stay
+    # data-only. This needs the CPU backend initialised beside the GPU.
     cpu = jax.devices("cpu")[0]
     for i, cfg in enumerate(cfgs):
         game_map = cfg.game.map_builder.create().build()
@@ -81,9 +82,6 @@ def build_task_set(
         with jax.default_device(cpu):
             t_cpu = Tables(compiled, track_stats=track_stats)
             tmpl, obs1 = make_reset_template(t_cpu, init)
-        from metta_tpu.engine.tables import attach_static_block_grid
-
-        attach_static_block_grid(t, jax.device_put(tmpl))
         templates.append(jax.device_put(tmpl))
         obs1s.append(jax.device_put(obs1))
         clip0.append(jnp.asarray(init["asm_start_clipped"]))
@@ -141,11 +139,7 @@ class MultiTaskEnv:
         self.tsdata, tables_list = build_task_set(self.cfgs, track_stats=track_stats)
         self.tables = tables_list[0]   # statics view (shared across the set)
         tables0 = self.tables
-        if step_mode == "batched" and (
-            not tables0.inv_vector_ok or tables0.chest_search_distance > 0
-        ):
-            step_mode = "sequential"
-        self.step_mode = step_mode
+        self.step_mode, _step_env = select_step(tables0, step_mode)
         self.desync = (
             self.cfgs[0].desync_episodes if desync_episodes is None else desync_episodes
         )
@@ -154,19 +148,6 @@ class MultiTaskEnv:
         self.action_names = tables0.action_names
         E = num_envs
         A = tables0.num_agents
-
-        if self.step_mode == "batched":
-            from metta_tpu.engine.step_batched import step_env_batched as _step_env
-        else:
-            _step_env = step_env
-
-        backend = jax.default_backend()
-        self._pl2 = self.step_mode == "batched" and backend not in ("cpu",)
-        from metta_tpu.ops.obs_render3 import supports_v3
-
-        # static shapes (K, NB, T, window) are shared across the stacked
-        # tasks, so one v3 applicability check covers the whole set
-        self._pl3 = self._pl2 and supports_v3(tables0, num_envs)
 
         def _fresh_batch(ts: TaskSetData, keys, task_id):
             """Reset-target state+obs for each env from its task's template."""
@@ -186,27 +167,9 @@ class MultiTaskEnv:
             return state, obs
 
         def _stepped(ts, env_state, task_id, actions):
-            if self._pl2:
-                from metta_tpu.ops.obs_render2 import render_obs_pallas2
-                from metta_tpu.ops.obs_render3 import render_obs_pallas3
-
-                env, rew_at_obs = jax.vmap(
-                    lambda s, a, tid: _step_env(
-                        s, a, _tables_at(ts.tables, tid), render="defer"
-                    )
-                )(env_state, actions, task_id)
-                render = render_obs_pallas3 if self._pl3 else (
-                    lambda *a, **kw: render_obs_pallas2(*a, eps=1, **kw)
-                )
-                obs = render(
-                    env, tables0, env.executed_action, rew_at_obs,
-                    stacked_tables=ts.tables, task_id=task_id,
-                )
-            else:
-                env, obs = jax.vmap(
-                    lambda s, a, tid: _step_env(s, a, _tables_at(ts.tables, tid))
-                )(env_state, actions, task_id)
-            return env, obs
+            return jax.vmap(
+                lambda s, a, tid: _step_env(s, a, _tables_at(ts.tables, tid))
+            )(env_state, actions, task_id)
 
         def reset_core(key, ts: TaskSetData):
             keys = jax.random.split(key, E)

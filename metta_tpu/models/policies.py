@@ -16,7 +16,7 @@ from dataclasses import dataclass
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from metta_tpu.models import nn
 
 from metta_tpu.models.components import LSTMCore, MLP, TokenEmbed
 

@@ -1,4 +1,4 @@
-"""Swin-style observation encoder + attention actor head (flax).
+"""Swin-style observation encoder + attention actor head.
 
 Parity: reference ``agent/src/metta/agent/components/swin_encoder.py``
 (ObsSwinEncoder: token features scatter-meaned into a patch grid, windowed
@@ -7,7 +7,7 @@ self-attention blocks with optional shifted windows, pooled projection) and
 ActorQuery → ActorKey: logits as dot products between a tanh query of the
 core output and learned per-action embeddings).
 
-TPU-first notes: the reference's ``index_add_`` scatter-mean becomes a one-hot
+Notes: the reference's ``index_add_`` scatter-mean becomes a one-hot
 GEMM (no data-dependent scatters under jit); window partition is pure
 reshape/transpose; shifted windows use ``jnp.roll`` + an additive mask that is
 a compile-time constant.
@@ -19,7 +19,7 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from metta_tpu.models import nn
 
 
 class WindowAttention(nn.Module):

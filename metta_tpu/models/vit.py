@@ -5,7 +5,7 @@ Parity: reference ``agent/src/metta/agent/policies/vit.py:17-121``
 pooling → recurrent core → actor MLP(256) + critic MLP(512) + GTD aux head.
 
 The core is selectable (``core`` field):
-- ``"lstm"`` — a scan LSTM (fastest on TPU; round-1 default),
+- ``"lstm"`` — a scan LSTM,
 - any cortex pattern string (e.g. the reference default ``"Ag,A,S"``) — a
   CortexStack of Column layers built from the cell library
   (``metta_tpu/models/cells.py``), matching the reference's
@@ -24,7 +24,7 @@ from typing import Any, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from metta_tpu.models import nn
 
 from metta_tpu.models.cells import CortexStack, StackSpec
 from metta_tpu.models.components import LSTMCore, MLP, PerceiverLatent, TokenEmbed
@@ -44,12 +44,12 @@ class ViTConfig:
     fourier_freqs: int = 3
     # "lstm", or a cortex pattern ("Ag,A,S", "AXMS", "X", ...). Default =
     # the reference's default core, the "Ag,A,S" Column stack
-    # (``agent/src/metta/agent/policies/vit.py:17-121``); "lstm" is a faster
-    # TPU path kept for benchmarks/tests that opt in explicitly.
+    # (``agent/src/metta/agent/policies/vit.py:17-121``); "lstm" is a
+    # lighter core kept for benchmarks/tests that opt in explicitly.
     core: str = "Ag,A,S"
     core_layers: int = 2
     # activation/matmul dtype for the token/perceiver/head stack. bfloat16 is
-    # the TPU default (MXU-native); float32 exists for numerics tests — the
+    # the default (tensor-core rate); float32 exists for numerics tests — the
     # single-vs-multi-device gradient-equivalence test must isolate the
     # collective path from bf16 reduction-order noise (a batch-dim bias-grad
     # reduce over n bf16 terms carries O(n·ulp) error, so a 128-term single
@@ -102,7 +102,7 @@ class ViTPolicy(nn.Module):
     feature_norms: tuple
 
     # the learner may forward a whole [T, B, K, 3] segment in one apply
-    # (token embed / perceiver / heads batch over T·B on the MXU; the core
+    # (token embed / perceiver / heads batch over T·B in large matmuls; the core
     # runs its sequence mode — chunkwise-parallel for mLSTM cells)
     supports_sequence = True
 

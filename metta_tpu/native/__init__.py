@@ -1,6 +1,6 @@
 """Native (C++) host-side components, built on demand with the system g++.
 
-The TPU compute path is JAX/XLA/Pallas; these are the host-runtime pieces the
+The device compute path is JAX/XLA; these are the host-runtime pieces the
 reference implements natively (mapgen inner loops). Loaded via ctypes; every
 consumer has a pure-Python fallback so the framework works without a
 toolchain.

@@ -4,14 +4,14 @@ Parity: reference ``cortex/kernels/pytorch/mlstm.py:89``
 ``mlstm_chunkwise_simple`` (and the Triton kernels under
 ``kernels/triton/mlstm/`` it mirrors): instead of a length-S recurrent scan,
 the sequence is processed in chunks of CS steps — within-chunk interactions
-become causal attention-like einsums (MXU work), and only the NS = S/CS
+become causal attention-like einsums (matmul work), and only the NS = S/CS
 chunk-boundary states recur. Same stabilized math (running max ``m``,
 normalizer ``n``, matrix state ``C``), including reset-mask support for
 episode boundaries inside a training segment.
 
-On TPU this is the idiomatic replacement for the reference's Triton kernel:
-the einsums are [CS, DH] × [DH, CS]-shaped matmuls that XLA tiles onto the
-MXU, and the boundary recurrence is a length-NS ``lax.scan`` (vs length-S).
+It is plain JAX in place of the reference's Triton kernel: the einsums are
+[CS, DH] × [DH, CS]-shaped matmuls that XLA compiles as it likes, and the
+boundary recurrence is a length-NS ``lax.scan`` (vs length-S).
 """
 
 from __future__ import annotations

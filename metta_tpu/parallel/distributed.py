@@ -1,17 +1,19 @@
-"""Multi-chip scaling: mesh construction + data-parallel sharded training step.
+"""Multi-card scaling: mesh construction + data-parallel sharded training step.
 
-The TPU-native replacement for the reference's torch-DDP/NCCL stack
+The replacement for the reference's torch-DDP/NCCL stack
 (``metta/rl/training/distributed_helper.py:29-130``): instead of per-rank
 processes with NCCL all-reduce, one SPMD program over a
 ``jax.sharding.Mesh``. Envs and rollout rows are sharded along the ``data``
-axis (each device simulates its own env shard — the analogue of the
+axis (each card simulates its own env shard — the analogue of the
 reference's per-worker envs AND of DDP's per-rank batches at once); gradients
-and advantage statistics are reduced with ``psum/pmean`` over ICI. A ``model``
-axis is reserved for tensor sharding but unused by default — the reference has
-no TP/PP either (SURVEY §2.5) and the policy is small (latent 128).
+and advantage statistics are reduced with ``psum/pmean``, which XLA hands to
+NCCL. A ``model`` axis is reserved for tensor sharding but unused by default —
+the reference has no TP/PP either (SURVEY §2.5) and the policy is small
+(latent 128). The cards of one host are joined all to all, so the mesh
+follows the algorithm alone.
 
-Multi-host: call ``jax.distributed.initialize()`` before building the mesh and
-the same code scales across pod slices (DCN), matching SURVEY §7.2 M5.
+Several processes: call ``jax.distributed.initialize(coordinator_address,
+num_processes, process_id)`` before building the mesh.
 """
 
 from __future__ import annotations
@@ -20,30 +22,19 @@ import dataclasses
 from typing import Optional
 
 import jax
-import jax.numpy as jnp
 import numpy as np
-import inspect as _inspect
-
-try:
-    from jax import shard_map as _shard_map
-    _SM_KW = "check_vma" if "check_vma" in _inspect.signature(_shard_map).parameters else None
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map as _shard_map
-    _SM_KW = "check_rep"
-
-
 from jax.sharding import Mesh, NamedSharding
 from jax.sharding import PartitionSpec as P
-
-
-def shard_map(f, *, mesh, in_specs, out_specs):
-    kw = {_SM_KW: False} if _SM_KW else {}
-    return _shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, **kw)
 
 from metta_tpu.config.mettagrid_config import MettaGridConfig
 from metta_tpu.models.vit import ViTConfig
 from metta_tpu.rl.config import TrainerConfig
 from metta_tpu.rl.trainer import Trainer, TrainState
+
+
+def shard_map(f, *, mesh, in_specs, out_specs):
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+                         check_vma=False)
 
 
 def make_mesh(n_devices: Optional[int] = None, model: int = 1) -> Mesh:

@@ -2,7 +2,7 @@
 
 Parity: reference ``mettagrid/policy/policy.py:22-264`` (``AgentPolicy`` /
 ``MultiAgentPolicy`` / ``StatefulAgentPolicy``) + ``policy/loader.py``.
-TPU-native addition: policies are *batched* — ``step_batch`` acts on
+Addition: policies are *batched* — ``step_batch`` acts on
 ``[N, tokens, 3]`` observations for N agent-slots at once so evaluation can
 vectorize whole episode batches on device.
 """
@@ -64,7 +64,7 @@ class RandomPolicy(MultiAgentPolicy):
 
 
 class NetworkPolicy(MultiAgentPolicy):
-    """A trained flax policy with per-slot recurrent state.
+    """A trained policy with per-slot recurrent state.
 
     Greedy or sampling action selection; slots map to (episode, agent) pairs
     in batched evaluation.

@@ -2,7 +2,7 @@
 
 Parity: the pufferlib CUDA kernel ``compute_puff_advantage``
 (``packages/pufferlib-core/src/pufferlib/extensions/pufferlib.cpp:28-42``) and
-``metta/rl/advantage.py:18-76`` — on TPU these are simple ``lax.scan`` reverse
+``metta/rl/advantage.py:18-76`` — here these are simple ``lax.scan`` reverse
 recurrences (no custom kernel needed; XLA fuses the scan body).
 
 Row layout [B, T]: index t holds (value of obs_t, reward received on arriving

@@ -31,7 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from metta_tpu.models import nn
 
 from metta_tpu.rl.scheduler import HP_INDEX
 
@@ -110,7 +110,7 @@ def _inter(fwd, key_name):
         raise KeyError(
             f"loss requires policy intermediate {key_name!r}; "
             "enable intermediate capture / the matching policy head")
-    # flax sow stores a tuple per call site; scan stacks to [T, 1?, M, ...]
+    # sow stores a tuple per call site; scan stacks to [T, 1?, M, ...]
     return val
 
 

@@ -1,6 +1,6 @@
 """On-device PPO actor-learner.
 
-The TPU-native replacement for the reference trainer stack
+The on-device replacement for the reference trainer stack
 (``metta/rl/trainer.py`` + ``training/core.py`` + ``training/experience.py``):
 instead of env worker processes feeding a GPU learner through shared memory,
 the rollout is a ``lax.scan`` over ``bptt_horizon`` steps alternating
@@ -31,7 +31,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import struct
 
 from metta_tpu.config.mettagrid_config import MettaGridConfig
 from metta_tpu.engine.env import MettaGridEnv
@@ -40,6 +39,7 @@ from metta_tpu.rl import losses as L
 from metta_tpu.rl.advantage import compute_delta_lambda, normalize_advantage, puff_advantage
 from metta_tpu.rl.config import TrainerConfig
 from metta_tpu.rl.scheduler import HP_FIELDS, HP_INDEX
+from metta_tpu.utils import struct
 
 
 @struct.dataclass
@@ -322,7 +322,7 @@ class Trainer:
         intermediate names to [T, M, ...] stacks (empty unless requested).
 
         Policies advertising ``supports_sequence`` take the whole segment in
-        ONE apply: encoder and heads batch over T·M (MXU-sized matmuls
+        ONE apply: encoder and heads batch over T·M (large matmuls
         instead of T skinny ones) and chunkwise-parallel cells (mLSTM)
         process the segment without a step scan."""
         core0 = self.policy.initial_state(rows)

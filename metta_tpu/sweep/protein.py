@@ -5,7 +5,7 @@ normalized [0,1]^d parameter space fit to observed (params → objective)
 pairs, suggesting new points by expected improvement over random candidates
 (cost-aware down-weighting for expensive configs). The reference uses
 pyro/torch; this is a self-contained numpy implementation (RBF kernel, exact
-posterior) — identical role, TPU-free host-side math.
+posterior) — identical role, host-side math.
 """
 
 from __future__ import annotations

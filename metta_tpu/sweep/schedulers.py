@@ -52,7 +52,12 @@ class GridSearchScheduler:
 
 
 class AsyncCappedScheduler:
-    """Protein suggestions with a cap on in-flight trials and a trial budget."""
+    """Protein suggestions with a cap on in-flight trials and a trial budget.
+
+    ``max_parallel`` counts cards, not trials per card: trials that share one
+    GPU run one at a time, because each JAX process reserves 75% of the
+    card's memory when it starts and a second one fails for want of memory.
+    """
 
     def __init__(self, space: dict[str, ParameterConfig], max_trials: int,
                  max_parallel: int = 1, maximize: bool = True, seed: int = 0):

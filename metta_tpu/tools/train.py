@@ -39,7 +39,7 @@ class PolicyConfig(Config):
     token_embed_dim: int = 8
     fourier_freqs: int = 3
     # recurrent core: the reference default "Ag,A,S" Column stack, or "lstm"
-    # (TPU fast path), or any cortex pattern string (models/cells.py).
+    # (lighter core), or any cortex pattern string (models/cells.py).
     core: str = "Ag,A,S"
     core_layers: int = 2
 

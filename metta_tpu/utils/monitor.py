@@ -29,7 +29,7 @@ def record_heartbeat(path: Optional[str] = None) -> None:
 
 
 class SystemMonitor:
-    """Background sampler: cpu%, rss, and (when available) TPU memory."""
+    """Background sampler: cpu%, rss, and (when available) device memory."""
 
     def __init__(self, interval_s: float = 5.0, history: int = 120):
         self.interval = interval_s

@@ -1,5 +1,5 @@
 """Measure learner throughput with the sequence-mode policy forward vs the
-per-step scan (VERDICT r2 #6): arena-scale update on one chip, cores
+per-step scan: arena-scale update on one chip, cores
 "lstm" / "Ag,A,S" / "M" (mLSTM via the chunkwise kernel).
 
 Usage: python scripts/bench_train_seq.py [--num-envs 1024] [--updates 6]

@@ -1,4 +1,4 @@
-"""Compile the env step for TPU and print an opcode histogram of the
+"""Compile the env step for the default backend and print an opcode histogram of the
 optimized HLO, plus every scatter/gather/sort/while with operand shapes.
 
 Usage: PYTHONPATH=. python scripts/hlo_census.py [--num-envs 1024] [--obs mm|ref|none]

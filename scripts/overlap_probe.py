@@ -1,10 +1,10 @@
 """Rollout/forward overlap probe (reference async_factor equivalent).
 
-Measures whether phase-shifted half-batches — policy forward (MXU) for one
-half while the env step (VPU) runs for the other — beat the serial
-obs->forward->step rollout body on TPU (reference
+Measures whether phase-shifted half-batches — policy forward for one half
+while the env step runs for the other — beat the serial
+obs->forward->step rollout body on the device (reference
 ``training/training_environment.py:46`` async_factor=2 overlaps env workers
-with the forward pass; on TPU both live in one program, so the question is
+with the forward pass; here both live in one program, so the question is
 whether XLA co-schedules them when they are dataflow-independent).
 
 Usage: python scripts/overlap_probe.py [--num-envs 4096] [--steps 64]
@@ -56,7 +56,6 @@ def main():
                        track_stats=False, step_mode="batched")
     envh = MettaGridEnv(cfg, num_envs=E // 2, desync_episodes=True,
                         track_stats=False, step_mode="batched")
-    print(f"fused={env._fused} half_fused={envh._fused}")
 
     pc = ViTConfig(core=args.core)
     policy = pc.make(env.compiled.n_actions, env.compiled.feature_normalizations)

@@ -82,21 +82,14 @@ def main():
         vs2 = vs.replace(env=envst)
         return vs2, jnp.sum(rew_at_obs[0].astype(jnp.int32))
 
-    def sim_defer(vs, actions):
-        envst, rew_at_obs = jax.vmap(
-            lambda s, a: step_env_batched(s, a, tables, render="defer")
-        )(vs.env, actions)
-        vs2 = vs.replace(env=envst)
-        return vs2, jnp.sum(rew_at_obs.astype(jnp.int32))
-
     def obs_only(vs, actions):
-        from metta_tpu.ops.obs_render2 import render_obs_pallas2
-        obs = render_obs_pallas2(vs.env, tables, vs.env.executed_action,
-                                 vs.env.reward, eps=1)
+        from metta_tpu.engine.obs import render_observations
+
+        obs = jax.vmap(lambda s: render_observations(
+            s, tables, s.executed_action, s.reward))(vs.env)
         return vs, jnp.sum(obs.astype(jnp.int32))
 
-    variants = {"full": full, "sim_defer": sim_defer, "sim_only": sim_only,
-                "obs_only": obs_only}
+    variants = {"full": full, "sim_only": sim_only, "obs_only": obs_only}
     if args.only:
         variants = {k: v for k, v in variants.items() if k in args.only.split(",")}
     for name, fn in variants.items():

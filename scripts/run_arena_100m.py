@@ -1,6 +1,6 @@
 """Run the arena_100m stable job with the reference-default Ag,A,S core.
 
-Usage: python scripts/run_arena_100m.py [--seed 0] [--out devops_runs/...]
+Usage: python scripts/run_arena_100m.py [--seed 0] [--out train_dir/...]
 Writes RESULTS_arena_100m.json + metrics.jsonl into the run dir.
 """
 
@@ -39,7 +39,7 @@ def main():
     result["exit_code"] = rc
     result["seed"] = args.seed
     result["policy_core"] = tool.policy.core
-    out = Path(args.out or f"devops_runs/stable_100m_r4_s{args.seed}")
+    out = Path(args.out or f"train_dir/stable_100m_r4_s{args.seed}")
     out.mkdir(parents=True, exist_ok=True)
     (out / "RESULTS_arena_100m.json").write_text(json.dumps(result, indent=2))
     for f in ("metrics.jsonl",):

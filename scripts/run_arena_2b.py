@@ -7,7 +7,7 @@ collected so far and writes RESULTS_arena_2b.json (partial results are
 still recorded; "passed" only means both gates cleared on the tail window).
 
 Usage: python scripts/run_arena_2b.py [--seed 0] [--max-minutes 20]
-       [--data-dir /tmp/stable_2b] [--out devops_runs/stable_2b]
+       [--data-dir /tmp/stable_2b] [--out train_dir/stable_2b]
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max-minutes", type=float, default=20.0)
     ap.add_argument("--data-dir", type=str, default="/tmp/stable_2b")
-    ap.add_argument("--out", type=str, default="devops_runs/stable_2b")
+    ap.add_argument("--out", type=str, default="train_dir/stable_2b")
     args = ap.parse_args()
 
     from metta_tpu.devops.stable import STABLE_JOBS, evaluate_acceptance

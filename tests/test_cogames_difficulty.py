@@ -1,4 +1,4 @@
-"""Difficulty variants + restored diagnostic objects (VERDICT r2 #7).
+"""Difficulty variants + restored diagnostic objects.
 
 The reference emits resource-specific chests (``chest_<res>``) and
 start-clipped extractor variants with unique map_names so diagnostic maps can

@@ -1,4 +1,4 @@
-"""Real multi-process distributed evidence (VERDICT r1 weak #4).
+"""Real multi-process distributed evidence.
 
 Two actual OS processes form a jax.distributed cluster over CPU (gloo
 collectives), build a global 4-device mesh (2 local devices each), and run

@@ -84,7 +84,7 @@ def test_resume_after_sigkill(tmp_path):
     try:
         deadline = time.time() + 420
         while time.time() < deadline:
-            if (ckpt_dir / "trainer_state.bin").exists():
+            if (ckpt_dir / "trainer_state.npz").exists():
                 break
             if p.poll() is not None:
                 raise AssertionError("worker exited before first checkpoint")

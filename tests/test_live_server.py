@@ -81,6 +81,10 @@ def live():
     env_cfg = make_navigation(num_agents=2, width=10, height=10)
     env_cfg.game.map_builder.seed = 3
     env = MettaGridEnv(env_cfg, num_envs=1, desync_episodes=False)
+    # compile the step before the server starts: the protocol tests wait at
+    # most 5 s for a frame, which a cold compile on a loaded CPU can exceed
+    env.reset(seed=0)
+    env.step(np.zeros(env.num_agents, np.int32))
     policy = RandomPolicy(env.compiled.n_actions, seed=0)
     session, server, thread = serve_play(
         env, policy, fps=20.0, max_steps=500, port=0, block=False)

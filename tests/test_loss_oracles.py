@@ -1,4 +1,4 @@
-"""Hand-computed value oracles for the riskiest loss math (VERDICT r2 #9).
+"""Hand-computed value oracles for the riskiest loss math.
 
 The per-family tests in test_losses.py are effect-smoke (finiteness +
 coefficient gating); a sign error that still trains would pass them. These

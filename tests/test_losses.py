@@ -106,7 +106,7 @@ def test_scheduled_coefs_change_update():
     assert np.isfinite(float(m2["policy_loss"]))
 
 
-# --- every auxiliary loss family changes the update (VERDICT r1 item #4) ---
+# --- every auxiliary loss family changes the update ---
 
 LOSS_CASES = [
     # (name, config overrides, hp coefficient name, needs teacher)

@@ -46,8 +46,7 @@ def test_distributed_update_runs():
 
 def test_single_vs_multi_device_gradient_equivalence():
     """Same total batch: full-batch gradients on one device must match the
-    pmean of per-shard gradients on a 4-device mesh (VERDICT r1 weak #4 —
-    single-vs-multi numerical equivalence)."""
+    pmean of per-shard gradients on a 4-device mesh."""
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
     from metta_tpu.parallel.distributed import make_mesh, shard_map

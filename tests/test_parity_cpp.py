@@ -1,5 +1,5 @@
 """Differential harness vs the reference C++ engine (BASELINE.md correctness
-target; VERDICT r1 next-round #2).
+target).
 
 Drives the *actual* reference engine (built from
 ``/root/reference/packages/mettagrid``, see ``oracle_support.py``) and our

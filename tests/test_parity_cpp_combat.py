@@ -1,4 +1,4 @@
-"""Combat differential harness vs the reference C++ engine (VERDICT r2 #2).
+"""Combat differential harness vs the reference C++ engine.
 
 Extends ``test_parity_cpp.py`` to the combat mechanics (staged configs 3-4 of
 BASELINE.md): attack/weapon/armor/defense/freeze/loot (``attack.hpp:143-224``),

@@ -1,60 +1,30 @@
-"""CPU-vs-accelerator engine differential (round-5 lesson).
+"""CPU-vs-GPU engine differential.
 
-The r3/r4 heart-gate failures came from TPU-ONLY silent corruption (default
-bf16 matmul precision + a shifted-slice miscompile) that the CPU suite could
-not see. This test reruns the byte-equivalence check whenever a non-CPU
-backend is actually present; in the normal CPU-only CI it skips.
-
-For manual hardware runs use ``scripts/diff_platform.py`` (subprocess-based,
-works under the exclusive single-process chip lock).
+CPU-green does not mean correct on the card: XLA compiles another program
+there, and a float32 matmul may run in TF32 unless the engine keeps it at
+float32 (``engine/xprec.py``). This reruns the arena recipe's trajectory on
+the GPU and on the CPU backend of the same process and requires every integer
+state field and observation byte to be identical. ``chip_smoke.py`` runs the
+same check at E=8 over 64 steps for both env classes.
 """
 
-import numpy as np
 import pytest
 
-import jax
+from metta_tpu.differential import engine_differential
 
 
-def _accel_devices():
-    try:
-        return [d for d in jax.devices() if d.platform not in ("cpu",)]
-    except RuntimeError:
-        return []
-
-
-@pytest.mark.skipif(not _accel_devices(), reason="no accelerator backend")
-def test_engine_trajectory_matches_cpu():
-    import jax.numpy as jnp
-
-    from recipes.arena_basic_easy_shaped import mettagrid
+@pytest.mark.gpu
+def test_engine_trajectory_matches_cpu(gpu):
     from metta_tpu.engine.env import MettaGridEnv
+    from recipes.arena_basic_easy_shaped import mettagrid
 
     cfg = mettagrid()
     cfg.game.map_builder.seed = 123
-    env = MettaGridEnv(cfg, num_envs=4, desync_episodes=False,
-                       track_stats=True, step_mode="batched")
-    t = env.tables
-    vstate, obs = jax.jit(env.reset_fn)(jax.random.PRNGKey(0))
 
-    def body(carry, k):
-        vstate, obs = carry
-        actions = jax.random.randint(k, (4, env.num_agents), 0, t.n_actions,
-                                     dtype=jnp.int32)
-        vstate, obs, rew, done, trunc = env.step_core(vstate, actions)
-        return (vstate, obs), None
+    def make():
+        return MettaGridEnv(cfg, num_envs=4, desync_episodes=False,
+                            track_stats=True, step_mode="batched")
 
-    @jax.jit
-    def run(vstate, obs, keys):
-        (vstate, obs), _ = jax.lax.scan(body, (vstate, obs), keys)
-        return vstate, obs
-
-    keys = jax.random.split(jax.random.PRNGKey(1), 64)
-    vstate, obs = run(vstate, obs, keys)
-    gained = np.asarray(jax.device_get(vstate.env.agent_gained)).sum(axis=(0, 1))
-    names = list(cfg.game.resource_names)
-    by_name = {n: int(gained[i]) for i, n in enumerate(names)}
-    # random play on the seeded arena must mine ore AND convert batteries —
-    # exactly the signals that were dead on hardware in r3/r4
-    assert by_name.get("ore_red", 0) > 0, by_name
-    assert by_name.get("battery_red", 0) > 0, (
-        f"conversion chain dead on {jax.default_backend()}: {by_name}")
+    rep = engine_differential(make, gpu, n_steps=64)
+    assert rep["step_mode"] == "batched"
+    assert rep["mismatches"] == [], rep["mismatches"]

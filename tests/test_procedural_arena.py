@@ -1,5 +1,5 @@
 """MachinaArena procedural composition + procedural mission variants
-(VERDICT r2 #7; reference ``cogames/cogs_vs_clips/procedural.py``)."""
+(reference ``cogames/cogs_vs_clips/procedural.py``)."""
 
 import numpy as np
 import pytest

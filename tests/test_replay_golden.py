@@ -1,5 +1,5 @@
 """Replay golden-file test vs a reference-engine-generated replay
-(VERDICT r1 next-round #10: mettascope byte-compatibility evidence).
+(mettascope byte-compatibility evidence).
 
 Drives the reference C++ engine (same oracle as tests/test_parity_cpp.py)
 with the reference ``InMemoryReplayWriter`` and our engine with our

@@ -1,4 +1,4 @@
-"""Route-contract conformance vs the reference app_backend (VERDICT r2 #10).
+"""Route-contract conformance vs the reference app_backend.
 
 The reference's observatory/gridworks React frontends are formally out of
 scope (cloud product UIs); what IS in scope is the DATA CONTRACT those UIs

@@ -1,9 +1,9 @@
-"""Sequence-mode policy forward == step-by-step scan (VERDICT r2 #6).
+"""Sequence-mode policy forward == step-by-step scan.
 
 The learner can forward a whole [T, B, K, 3] segment in one policy apply:
 token embed / perceiver / heads batch over T·B, and the core runs its
 sequence mode — the chunkwise-parallel mLSTM kernel (ops/mlstm_chunkwise.py,
-the TPU analogue of the reference Triton kernels,
+plain JAX in place of the reference Triton kernels,
 ``cortex/kernels/triton/mlstm/``) for "M" cells, a lifted scan for the LSTM
 core, and an unrolled shared-parameter loop for the other cells.
 

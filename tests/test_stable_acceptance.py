@@ -1,5 +1,4 @@
-"""Stable-job acceptance registry (VERDICT r2 #4; reference
-``devops/stable/runner.py:34-132`` + the prod recipe's acceptance gates).
+"""Stable-job acceptance registry.
 
 Covers: criterion evaluation semantics (tail-window mean, operators, missing
 metrics), registry thresholds matching the reference bars, and an end-to-end

@@ -10,26 +10,29 @@ non-zero exit and no result line.
 2. sim: the combat simulator at E=4096, A=24 (``bench.py``'s program, a
    scan of 100 steps that consumes the observations): compile time,
    steps/s, ``compiled.memory_analysis()`` and the conversion-chain check.
-   Then the device time of one sim step and of one observation render under
-   ``obs_mm`` and under ``render_observations_ref``, whose outputs must be
-   byte-identical.
+   Then the device time of one sim step and of one observation render.
 3. differential: the arena recipe's MettaGridEnv and MultiTaskEnv (E=8,
    64 steps) against the CPU backend of this process, and the default ViT
    against a CPU float32 forward.
 4. train: ``tools/run.py recipes.arena_basic_easy_shaped.train`` through
    ``cli_entry`` at the recipe and trainer defaults, cut to one update:
    losses finite, a bundle written and reloaded through ``policy/policy.py``.
+   The one update includes the update program's compilation, so its
+   ``overview/sps`` is not a steady rate.
 
 ``--four-cards`` runs only the data-parallel trainer over four cards and,
 to compare, over one card at the same per-card width (341 arena envs of 24
 agents), two updates each. It runs the ViT with its LSTM core and a bptt of
-64: the default Column core's update takes minutes to compile, and four
-cards pay for every second four times.
+64, not the default Column core at bptt 256: at the defaults one update
+takes about 300 s on an H100 and its program about 140 s to compile, so two
+updates on one card and two on four would hold four cards for about 25
+minutes; with the LSTM core at bptt 64 an update takes about 40 s.
 
-The last line of stdout is one JSON object,
+To rerun one phase by hand, call its function, as ``tests/test_chip_smoke.py``
+does. The last line of stdout is one JSON object,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-Usage: python chip_smoke.py [--out DIR] [--phases probe,sim,...] [--four-cards]
+Usage: python chip_smoke.py [--out DIR] [--four-cards]
 """
 
 from __future__ import annotations
@@ -53,7 +56,6 @@ OPTIONAL_PACKAGES = ("flax", "pydantic", "safetensors", "msgpack", "yaml",
 BF16_ULP_TOLERANCE = 8      # default bf16 ViT vs the CPU float32 forward
 F32_ATOL = 1e-4             # float32 ViT at highest precision on both sides
 ENGINE_RTOL = 1e-6          # float state fields (rewards): reduction order
-PHASES = ("probe", "sim", "differential", "train")
 
 
 def log(*args):
@@ -88,19 +90,18 @@ def phase_probe() -> dict:
     return info
 
 
-def _render_program(env, renderer, iters: int):
+def _render_program(env, iters: int):
     """``run(estate) -> obs byte sum`` of ``iters`` whole-batch renders; the
     executed actions change every iteration so no render is loop-invariant."""
-    from metta_tpu.engine.xprec import exact_matmuls
+    from metta_tpu.engine.obs import render_observations
 
     tables = env.tables
     n_act = env.compiled.n_actions
 
-    @exact_matmuls
     def run(estate):
         def body(acc, i):
             ea = (estate.executed_action + i) % n_act
-            obs = jax.vmap(lambda s, a: renderer(s, tables, a, s.reward))(estate, ea)
+            obs = jax.vmap(lambda s, a: render_observations(s, tables, a, s.reward))(estate, ea)
             return acc + jnp.sum(obs.astype(jnp.int32)), None
 
         acc, _ = jax.lax.scan(body, jnp.int32(0), jnp.arange(iters))
@@ -133,12 +134,8 @@ def _time_program(name: str, prog, args, n: int, trace_dir: str | None) -> dict:
 
 
 def phase_sim(num_envs: int = 4096, steps: int = 100, agents: int = 24,
-              render_iters: int = 20, small_envs: int = 256,
-              trace_dir: str | None = None) -> dict:
+              render_iters: int = 20, trace_dir: str | None = None) -> dict:
     import bench
-    from metta_tpu.engine.obs import render_observations_ref
-    from metta_tpu.engine.obs_mm import render_observations_mm
-    from metta_tpu.engine.xprec import exact_matmuls
 
     r = bench.measure(num_envs, steps, agents)
     env, vstate, compiled = r["env"], r["vstate"], r["compiled"]
@@ -152,36 +149,14 @@ def phase_sim(num_envs: int = 4096, steps: int = 100, agents: int = 24,
     out[f"sim_step_E{num_envs}"] = _time_program(
         f"sim_step_E{num_envs}", compiled, (vstate, jax.random.PRNGKey(2)), steps, trace_dir)
 
-    # The renderers alone, on this state and on its first ``small_envs`` envs.
-    stats = jax.devices()[0].memory_stats() or {}
-    limit = stats.get("bytes_limit")
-    renderers = {"render_obs_mm": render_observations_mm,
-                 "render_observations_ref": render_observations_ref}
-    for E in sorted({num_envs, min(small_envs, num_envs)}, reverse=True):
-        estate = jax.tree.map(lambda x: x[:E], vstate.env)
-        for rname, fn in renderers.items():
-            name = f"{rname}_E{E}"
-            t0 = time.perf_counter()
-            prog = _render_program(env, fn, render_iters).lower(estate).compile()
-            temp = prog.memory_analysis().temp_size_in_bytes
-            log(f"{name}: compile {time.perf_counter() - t0:.3f} s, "
-                f"{temp / 1e9:.3f} GB of temporaries")
-            if limit is not None and temp > limit:
-                log(f"{name}: does not fit the card ({limit / 1e9:.3f} GB); not run")
-                out[name] = {"temp_gb": temp / 1e9, "fits": False}
-                continue
-            out[name] = {"temp_gb": temp / 1e9, "fits": True,
-                         **_time_program(name, prog, (estate,), render_iters, trace_dir)}
-        # byte identity of the two renderers where both fit
-        if all(out[f"{n}_E{E}"]["fits"] for n in renderers):
-            one = {n: np.asarray(jax.jit(exact_matmuls(jax.vmap(
-                lambda s, f=f: f(s, env.tables, s.executed_action, s.reward))))(estate))
-                for n, f in renderers.items()}
-            a, b = one.values()
-            if not np.array_equal(a, b):
-                raise RuntimeError(f"obs_mm and render_observations_ref differ in "
-                                   f"{int((a != b).sum())} of {a.size} bytes at E={E}")
-            log(f"render E={E}: obs_mm == render_observations_ref on all {a.size} bytes")
+    # The observation render alone, on this state.
+    name = f"render_E{num_envs}"
+    t0 = time.perf_counter()
+    prog = _render_program(env, render_iters).lower(vstate.env).compile()
+    temp = prog.memory_analysis().temp_size_in_bytes
+    log(f"{name}: compile {time.perf_counter() - t0:.3f} s, {temp / 1e9:.3f} GB of temporaries")
+    out[name] = {"temp_gb": temp / 1e9,
+                 **_time_program(name, prog, (vstate.env,), render_iters, trace_dir)}
     return out
 
 
@@ -216,7 +191,8 @@ def phase_differential(device, num_envs: int = 8, steps: int = 64,
         last_obs = rep.pop("last_obs")
         log(f"differential {name}: step_mode={rep['step_mode']} E={rep['num_envs']} "
             f"{rep['steps']} steps, {rep['obs_bytes_compared']} obs bytes, "
-            f"{len(rep['mismatches'])} mismatching fields")
+            f"{len(rep['mismatches'])} mismatching fields; the CPU trajectory gained "
+            f"{rep['ref_gained']}")
         for m in rep["mismatches"]:
             log("  " + m)
         if rep["step_mode"] != "batched":
@@ -307,27 +283,34 @@ def phase_train(out_dir: str, overrides: tuple = (), updates: int = 1) -> dict:
     return {"overview_sps": sps, "wall_s": wall, "bundle": uri}
 
 
-def _dp_run(n_cards: int, per_card_envs: int, updates: int, trainer_overrides: dict,
-            policy_cfg=None):
+def _dp_setup(n_cards: int, per_card_envs: int, trainer_overrides: dict, policy_cfg):
+    """A DistributedTrainer over the first ``n_cards`` devices, its state
+    (checked to hold ``per_card_envs`` envs on each card), the update's
+    runtime arguments and its lowered update program."""
     from metta_tpu.parallel.distributed import DistributedTrainer, make_mesh
     from metta_tpu.rl.config import TrainerConfig
     from recipes.arena_basic_easy_shaped import mettagrid
 
     cfg = mettagrid()
     cfg.game.map_builder.seed = 123
-    E = per_card_envs * n_cards
-    tcfg = TrainerConfig(**trainer_overrides)
-    tr = DistributedTrainer(cfg, tcfg, policy_cfg, num_envs=E, mesh=make_mesh(n_cards))
+    tr = DistributedTrainer(cfg, TrainerConfig(**trainer_overrides), policy_cfg,
+                            num_envs=per_card_envs * n_cards, mesh=make_mesh(n_cards))
     ts = tr.init_state()
     shards = ts.vstate.env.step.addressable_shards
     per_shard = sorted({s.data.shape[0] for s in shards})
     if len(shards) != n_cards or per_shard != [per_card_envs]:
         raise RuntimeError(f"{len(shards)} env shards of sizes {per_shard}, expected "
                            f"{n_cards} of {per_card_envs}")
+    # the arguments Trainer.update passes on the single-task path
+    args = (jnp.asarray(tr.default_hp(), jnp.float32), jnp.int32(tr.cfg.update_epochs))
+    return tr, ts, args, tr._update_jit.lower(ts, *args)
+
+
+def _dp_run(tr, ts, args, update, n_cards: int, updates: int) -> dict:
     walls = []
     for _ in range(updates):
         t0 = time.perf_counter()
-        ts, metrics = tr.update(ts)
+        ts, metrics = update(ts, *args)
         jax.block_until_ready(ts.params)
         walls.append(time.perf_counter() - t0)
     for leaf in jax.tree.leaves(ts.params):
@@ -338,7 +321,7 @@ def _dp_run(n_cards: int, per_card_envs: int, updates: int, trainer_overrides: d
     if not all(math.isfinite(v) for v in m.values()):
         raise RuntimeError(f"non-finite metrics {m}")
     steps = tr.B * tr.T
-    return {"cards": n_cards, "num_envs": E, "agent_steps_per_update": steps,
+    return {"cards": n_cards, "num_envs": tr.E, "agent_steps_per_update": steps,
             "update_walls_s": walls, "agent_steps_per_s": steps / walls[-1]}
 
 
@@ -348,31 +331,40 @@ FOUR_CARD_TRAINER = {"bptt_horizon": 64}
 def phase_four_cards(per_card_envs: int = 341, updates: int = 2,
                      trainer_overrides: dict | None = None, policy_cfg=None) -> dict:
     """DistributedTrainer over four cards against one card at the same
-    per-card width; the last update of each is timed (the first compiles)."""
+    per-card width: each card holds ``per_card_envs`` envs and parameters are
+    bit-identical across cards after the updates. Both update programs are
+    compiled first, at the same time in two threads; the last update of
+    each is timed."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from metta_tpu.models.vit import ViTConfig
 
     over = FOUR_CARD_TRAINER if trainer_overrides is None else trainer_overrides
     policy_cfg = policy_cfg or ViTConfig(core="lstm")
-    one = _dp_run(1, per_card_envs, updates, over, policy_cfg)
-    log(f"dp 1 card: {json.dumps(one)}")
-    four = _dp_run(4, per_card_envs, updates, over, policy_cfg)
-    log(f"dp 4 cards: {json.dumps(four)}")
-    log(f"dp scaling: {four['agent_steps_per_s'] / one['agent_steps_per_s']:.3f}x "
+    t0 = time.perf_counter()
+    setups = {n: _dp_setup(n, per_card_envs, over, policy_cfg) for n in (1, 4)}
+    log(f"dp: trainers built, states placed and updates lowered in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(setups)) as pool:
+        compiled = dict(zip(setups, pool.map(lambda su: su[3].compile(), setups.values())))
+    log(f"dp: the 1-card and 4-card update programs compiled in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for n in (4, 1):    # four cards first: the phase's point, should the run be cut short
+        tr, ts, args, _ = setups.pop(n)
+        out[n] = _dp_run(tr, ts, args, compiled[n], n, updates)
+        log(f"dp {n} card(s): {json.dumps(out[n])}")
+    log(f"dp scaling: {out[4]['agent_steps_per_s'] / out[1]['agent_steps_per_s']:.3f}x "
         f"agent-steps/s on 4 cards over 1 card (ideal 4x)")
-    return {"one": one, "four": four}
+    return {"one": out[1], "four": out[4]}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/chip_smoke")
     ap.add_argument("--four-cards", action="store_true")
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of the one-card phases")
     args = ap.parse_args(argv)
-    phases = args.phases.split(",")
-    unknown = set(phases) - set(PHASES)
-    if unknown:
-        ap.error(f"unknown phases {sorted(unknown)}; choose from {PHASES}")
 
     from metta_tpu.utils.device import (device_summary, enable_compile_cache,
                                         gpu_name_and_power_limit, require_gpu)
@@ -395,13 +387,10 @@ def main(argv=None) -> int:
             raise RuntimeError(f"--four-cards needs 4 GPUs, found {len(jax.devices())}")
         run("four_cards", phase_four_cards)
     else:
-        calls = {"probe": (phase_probe,),
-                 "sim": (phase_sim, dict(trace_dir=str(out / "traces"))),
-                 "differential": (phase_differential, dict(device=jax.devices()[0])),
-                 "train": (phase_train, dict(out_dir=str(out)))}
-        for name in phases:
-            fn, *kw = calls[name]
-            run(name, fn, **(kw[0] if kw else {}))
+        run("probe", phase_probe)
+        run("sim", phase_sim, trace_dir=str(out / "traces"))
+        run("differential", phase_differential, device=jax.devices()[0])
+        run("train", phase_train, out_dir=str(out))
     (out / "results.json").write_text(json.dumps(results, indent=1, default=str))
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     for line in gpu_name_and_power_limit():

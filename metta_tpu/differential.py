@@ -96,13 +96,17 @@ def env_trajectory(make_env: Callable, device, n_steps: int, seed: int = 0):
 def engine_differential(make_env: Callable, device, n_steps: int = 64,
                         seed: int = 0, rtol: float = 1e-6) -> dict:
     """Trajectory on ``device`` against the CPU backend. Returns a report with
-    the mismatches (empty when the engine agrees) and what was compared."""
+    the mismatches (empty when the engine agrees), what was compared, and the
+    resources the agents gained over the CPU trajectory (``ref_gained``, by
+    name; zero counts left out), which shows whether the play did anything."""
     env, ref = env_trajectory(make_env, jax.devices("cpu")[0], n_steps, seed)
     _, got = env_trajectory(make_env, device, n_steps, seed)
     name = type(env).__name__
+    gained = ref[1].agent_gained[-1].sum(axis=(0, 1))
     return {"env": name, "step_mode": env.step_mode, "num_envs": env.num_envs,
             "steps": n_steps, "obs_bytes_compared": int(ref[0].size + ref[2].size),
             "last_obs": ref[2][-1],
+            "ref_gained": {n: int(v) for n, v in zip(env.tables.resource_names, gained) if v},
             "mismatches": compare_trees(ref, got, rtol=rtol, label=name)}
 
 

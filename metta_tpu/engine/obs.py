@@ -304,24 +304,6 @@ def _compact_blocks(blocks, oks):
 def render_observations(state, tables, executed_actions, rewards_at_obs):
     """Render all agents' token observations → [A, T, 3] uint8.
 
-    Dispatches on ``tables.obs_renderer``: ``"ref"`` (default) is the
-    gather/searchsorted formulation below; ``"mm"`` is the one-hot matmul
-    formulation (:mod:`metta_tpu.engine.obs_mm`, no gathers). Both are
-    byte-identical (``tests/test_obs_mm.py``). On an H100 the gather renderer
-    is the one that fits: at combat E=4096 its step program needs 0.41 GB of
-    temporaries where obs_mm's needs 135 GB.
-    """
-    renderer = getattr(tables, "obs_renderer", "ref")
-    if renderer == "mm":
-        from metta_tpu.engine.obs_mm import render_observations_mm
-
-        return render_observations_mm(state, tables, executed_actions, rewards_at_obs)
-    return render_observations_ref(state, tables, executed_actions, rewards_at_obs)
-
-
-def render_observations_ref(state, tables, executed_actions, rewards_at_obs):
-    """Render all agents' token observations → [A, T, 3] uint8.
-
     Gather-based compaction: per-object token blocks are built
     once per step and compacted; each agent's render is then
     cell-count prefix sums + per-output-slot ``searchsorted`` gathers — no

@@ -53,10 +53,8 @@ class Tables:
     only then (training envs turn them off; eval envs keep them).
     """
 
-    def __init__(self, cfg: CompiledConfig, track_stats: bool = True,
-                 obs_renderer: str = "ref"):
+    def __init__(self, cfg: CompiledConfig, track_stats: bool = True):
         self._cfg = cfg
-        self.obs_renderer = obs_renderer
 
         used_srcs = set(np.unique(cfg.stat_src))
         self.track_gained = track_stats or bool(
@@ -127,7 +125,7 @@ class Tables:
     # ------------------------------------------------------------------
 
     _STATIC_NAMES = (
-        "obs_renderer", "track_gained", "track_chest_stats",
+        "track_gained", "track_chest_stats",
         "has_assemblers", "has_chests", "has_attack", "has_transfer",
         "has_damage", "has_regen", "has_mods", "has_swap",
         "loot_ids", "any_attack_delta", "any_attack_consumed",

@@ -1,7 +1,7 @@
 """Compile the env step for the default backend and print an opcode histogram of the
 optimized HLO, plus every scatter/gather/sort/while with operand shapes.
 
-Usage: PYTHONPATH=. python scripts/hlo_census.py [--num-envs 1024] [--obs mm|ref|none]
+Usage: PYTHONPATH=. python scripts/hlo_census.py [--num-envs 1024] [--no-obs]
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--num-envs", type=int, default=1024)
     ap.add_argument("--agents", type=int, default=24)
-    ap.add_argument("--obs", default="mm", choices=["mm", "ref", "none"])
+    ap.add_argument("--no-obs", action="store_true", help="the sim step without the render")
     ap.add_argument("--full", action="store_true", help="dump full HLO to /tmp/step.hlo")
     args = ap.parse_args()
 
@@ -27,14 +27,12 @@ def main():
     cfg = make_combat(num_agents=args.agents)
     env = MettaGridEnv(cfg, num_envs=args.num_envs, desync_episodes=True,
                        track_stats=False, step_mode="batched")
-    if args.obs in ("mm", "ref"):
-        env.tables.obs_renderer = args.obs
     E, A = args.num_envs, env.num_agents
     n_actions = env.compiled.n_actions
 
     def one_step(vstate, key):
         actions = jax.random.randint(key, (E, A), 0, n_actions, dtype=jnp.int32)
-        if args.obs == "none":
+        if args.no_obs:
             from metta_tpu.engine import step_batched as sb
             env_s, _ = jax.vmap(lambda s, a: sb.step_env_batched_sim(s, a, env.tables))(
                 vstate.env, actions)

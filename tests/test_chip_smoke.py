@@ -13,11 +13,9 @@ TINY_VIT = ViTConfig(latent_dim=16, actor_hidden=16, critic_hidden=16,
 
 
 def test_phase_sim_tiny():
-    out = S.phase_sim(num_envs=8, steps=25, render_iters=2, small_envs=4)
+    out = S.phase_sim(num_envs=8, steps=25, render_iters=2)
     assert out["env_steps_per_s"] > 0 and out["held"]
-    for E in (8, 4):
-        for r in ("render_obs_mm", "render_observations_ref"):
-            assert out[f"{r}_E{E}"]["fits"]
+    assert out["render_E8"]["temp_gb"] >= 0 and out["render_E8"]["wall_ms_per_step"] > 0
 
 
 def test_phase_differential_tiny():

@@ -1,8 +1,9 @@
 """The CPU-vs-device differential's comparison finds what it must find."""
 
+import jax
 import numpy as np
 
-from metta_tpu.differential import bf16_ulps, compare_trees
+from metta_tpu.differential import bf16_ulps, compare_trees, engine_differential
 
 
 def _tree():
@@ -39,3 +40,20 @@ def test_bf16_ulps_scale():
     assert bf16_ulps(ref, ref) == 0.0
     # scale 3.0 -> ulp 2^(1-7); an error of two ulps reads 2
     assert bf16_ulps(ref, ref + np.float32(2 * 2.0 ** -6)) == 2.0
+
+
+def test_engine_differential_reports_live_play():
+    """CPU against itself: no mismatch, and the report shows that random
+    play on the seeded arena mined ore and converted it."""
+    from metta_tpu.engine.env import MettaGridEnv
+    from recipes.arena_basic_easy_shaped import mettagrid
+
+    cfg = mettagrid()
+    cfg.game.map_builder.seed = 123
+    rep = engine_differential(
+        lambda: MettaGridEnv(cfg, num_envs=4, desync_episodes=False, track_stats=True,
+                             step_mode="batched"),
+        jax.devices("cpu")[0], n_steps=64)
+    assert rep["mismatches"] == []
+    assert rep["ref_gained"].get("ore_red", 0) > 0, rep["ref_gained"]
+    assert rep["ref_gained"].get("battery_red", 0) > 0, rep["ref_gained"]

@@ -3,8 +3,8 @@
 Both env classes take their step from ``engine.env.select_step``, which does
 not look at the backend: the batched step with the in-vmap renderer on CPU
 and GPU alike, the sequential reference step only for what the batched step
-does not implement. The renderer parity below runs through MultiTaskEnv's
-own step on the maps the removed kernel tests used.
+does not implement. Below, MultiTaskEnv's step is held to MettaGridEnv's on
+combat, arena and navigation maps.
 """
 
 import jax
@@ -16,7 +16,6 @@ from metta_tpu.builder.envs import make_arena, make_combat, make_navigation
 from metta_tpu.engine.env import MettaGridEnv, select_step
 from metta_tpu.engine.step import step_env
 from metta_tpu.engine.step_batched import step_env_batched
-from metta_tpu.engine.tables import Tables
 from metta_tpu.engine.taskset import MultiTaskEnv
 
 
@@ -52,12 +51,6 @@ def test_select_step_falls_back_for_chest_search():
     assert select_step(env.tables, "batched") == ("sequential", step_env)
 
 
-def _with_renderer(tables: Tables, name: str) -> Tables:
-    children, (arrays, statics, derived) = tables.tree_flatten()
-    derived = tuple((n, name if n == "obs_renderer" else v) for n, v in derived)
-    return Tables.tree_unflatten((arrays, statics, derived), children)
-
-
 MAPS = {
     "combat_seed0": (lambda: make_combat(num_agents=8), 1234, 4, 10, 0, False),
     "combat_seed7": (lambda: make_combat(num_agents=8), 1234, 4, 10, 7, False),
@@ -69,30 +62,36 @@ MAPS = {
 
 
 @pytest.mark.parametrize("name", list(MAPS))
-def test_obs_mm_matches_ref_through_multitask_env(name):
+def test_multitask_env_matches_plain_env(name):
+    """MultiTaskEnv reads its tables as data (one set per task); over one
+    task its trajectory equals MettaGridEnv's, whose tables are constants,
+    byte for byte: observations, rewards, episode ends and env state, with
+    out-of-range actions mixed in."""
     make, map_seed, E, steps, seed, track = MAPS[name]
     cfg = make()
     cfg.game.map_builder.seed = map_seed
-    env = MultiTaskEnv([cfg], num_envs=E, desync_episodes=False,
-                       track_stats=track, step_mode="batched")
-    assert env.step_mode == "batched" and env.tables.obs_renderer == "ref"
-    ts_ref = env.tsdata
-    ts_mm = ts_ref.replace(tables=_with_renderer(ts_ref.tables, "mm"))
-    n_actions = len(env.action_names)
+    mt = MultiTaskEnv([cfg], num_envs=E, desync_episodes=False,
+                      track_stats=track, step_mode="batched")
+    plain = MettaGridEnv(cfg, num_envs=E, desync_episodes=False,
+                         track_stats=track, step_mode="batched")
+    assert mt.step_mode == plain.step_mode == "batched"
+    n_actions = len(mt.action_names)
+    acts = jax.random.randint(jax.random.PRNGKey(seed + 1000), (steps, E, mt.num_agents),
+                              -1, n_actions + 1, dtype=jnp.int32)
 
-    def run(ts):
-        def body(vstate, k):
-            acts = jax.random.randint(k, (E, env.num_agents), -1, n_actions + 1,
-                                      dtype=jnp.int32)
-            vstate, obs, *_ = env.step_core(vstate, acts, ts)
-            return vstate, obs
+    def run(reset, step):
+        vstate, obs0 = reset(jax.random.PRNGKey(seed))
 
-        vstate, obs0 = env.reset_core(jax.random.PRNGKey(seed), ts)
-        keys = jax.random.split(jax.random.PRNGKey(seed + 1000), steps)
-        vstate, obs = jax.lax.scan(body, vstate, keys)
-        return obs0, obs, vstate.env
+        def body(vstate, a):
+            vstate, *out = step(vstate, a)
+            return vstate, out
 
-    ref = jax.device_get(jax.jit(run)(ts_ref))
-    mm = jax.device_get(jax.jit(run)(ts_mm))
-    for a, b in zip(jax.tree.leaves(ref), jax.tree.leaves(mm)):
+        vstate, outs = jax.lax.scan(body, vstate, acts)
+        return obs0, outs, vstate.env
+
+    ts = mt.tsdata
+    got = jax.device_get(jax.jit(lambda: run(lambda k: mt.reset_core(k, ts),
+                                             lambda v, a: mt.step_core(v, a, ts)))())
+    ref = jax.device_get(jax.jit(lambda: run(plain.reset_core, plain.step_core))())
+    for a, b in zip(jax.tree.leaves(ref), jax.tree.leaves(got), strict=True):
         np.testing.assert_array_equal(a, b)
